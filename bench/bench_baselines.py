@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Baseline attention TOPS sweeps (reference: bench/bench_baseline.py,
-bench_fa3.py): jax's tuned Pallas flash-attention (the TPU FA2 analogue),
-jax.nn.dot_product_attention, and naive XLA softmax attention.
+bench_fa3.py): cuDNN's bf16 fused attention (NVIDIA's library kernel,
+the FA3-class baseline), jax.nn.dot_product_attention compiled by XLA,
+and naive XLA softmax attention.
 
-Usage: python bench/bench_baselines.py [--which flash|sdpa|xla]
+Usage: python bench/bench_baselines.py [--which cudnn|sdpa|xla]
 """
 
 import argparse
@@ -15,37 +16,15 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-from bench.utils import attention_flops, device_time
+from bench.utils import attention_flops, card, require_gpu, time_ms
+from sageattention_jax import baselines
 
 
 def get_fn(which, causal, s, d):
-    if which == "flash":
-        from jax.experimental.pallas.ops.tpu.flash_attention import (
-            BlockSizes,
-            flash_attention,
-        )
-
-        bq = min(512, s)
-        bk = min(1024, s)
-        bkm = min(2048, s)
-        bs = BlockSizes(
-            block_q=bq, block_k_major=bkm, block_k=bk, block_b=1,
-            block_q_major_dkv=bq, block_k_major_dkv=bkm,
-            block_k_dkv=bk, block_q_dkv=bq,
-            block_k_major_dq=bkm, block_k_dq=bk, block_q_dq=bq,
-        )
-        return functools.partial(
-            flash_attention, causal=causal, block_sizes=bs
-        )
+    if which == "cudnn":
+        return functools.partial(baselines.cudnn, is_causal=causal)
     if which == "sdpa":
-        def f(q, k, v):
-            # NHD in/out
-            o = jax.nn.dot_product_attention(
-                jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2),
-                jnp.swapaxes(v, 1, 2), is_causal=causal,
-            )
-            return jnp.swapaxes(o, 1, 2)
-        return f
+        return functools.partial(baselines.sdpa, is_causal=causal)
     if which == "xla":
         def f(q, k, v):
             s_ = jnp.einsum(
@@ -70,11 +49,14 @@ def main():
     ap.add_argument("--head_dim", type=int, default=128)
     ap.add_argument("--seqs", default="1024,2048,4096,8192,16384,32768")
     ap.add_argument("--causal", action="store_true")
-    ap.add_argument("--which", default="flash", choices=["flash", "sdpa", "xla"])
+    ap.add_argument("--which", default="cudnn",
+                    choices=["cudnn", "sdpa", "xla"])
     args = ap.parse_args()
+    require_gpu()
 
     b, h, d = args.batch, args.heads, args.head_dim
-    print(f"# baseline={args.which} causal={args.causal} b={b} h={h} hd={d}")
+    print(f"# {card()}: baseline={args.which} causal={args.causal} "
+          f"b={b} h={h} hd={d}")
     for s in (int(x) for x in args.seqs.split(",")):
         if args.which == "xla" and s > 8192:
             print(f"seq {s:6d}: skipped (materializes {s}x{s} scores)")
@@ -82,14 +64,9 @@ def main():
         q = jax.random.normal(jax.random.PRNGKey(0), (b, h, s, d), jnp.bfloat16)
         k = jax.random.normal(jax.random.PRNGKey(1), (b, h, s, d), jnp.bfloat16)
         v = jax.random.normal(jax.random.PRNGKey(2), (b, h, s, d), jnp.bfloat16)
-        f = get_fn(args.which, args.causal, s, d)
-
-        def one(i, c, q, k, v):
-            return f(q + (c * 1e-30).astype(q.dtype), k, v)
-
-        t = device_time(one, (q, k, v))
-        tops = attention_flops(b, h, s, d, args.causal) / t / 1e12
-        print(f"seq {s:6d}: {t*1e3:8.3f} ms  {tops:7.1f} TFLOPS", flush=True)
+        ms = time_ms(jax.jit(get_fn(args.which, args.causal, s, d)), q, k, v)
+        tops = attention_flops(b, h, s, d, args.causal) / (ms * 1e-3) / 1e12
+        print(f"seq {s:6d}: {ms:8.3f} ms  {tops:7.1f} TFLOPS", flush=True)
 
 
 if __name__ == "__main__":

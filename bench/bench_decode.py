@@ -17,8 +17,8 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-from bench.utils import device_time
-from sageattention_tpu import kvcache
+from bench.utils import card, require_gpu, time_ms
+from sageattention_jax import kvcache
 
 
 def main():
@@ -36,6 +36,8 @@ def main():
                          "prefill / speculative verify: t_q = T against "
                          "the full cache)")
     args = ap.parse_args()
+    require_gpu()
+    print(f"# {card()}")
     b, hkv, d = args.batch, args.kv_heads, args.head_dim
     hq = hkv * args.group
 
@@ -52,15 +54,12 @@ def main():
         cache, lengths = kvcache.append_kv(cache, lengths, k, v)
         q = rng(3, (b, hq, 1, d))
 
-        t_sage = device_time(
-            lambda i, c, q, cache: kvcache.sageattn_decode(
-                q + (c * 1e-30).astype(q.dtype), cache, lengths),
-            (q, cache),
-            n=10,
-        )
+        t_sage = time_ms(jax.jit(kvcache.sageattn_decode), q, cache,
+                         lengths, n=10) * 1e-3
 
-        def xla_decode(i, c, q, k, v):
-            qf = (q + (c * 1e-30).astype(q.dtype)).astype(jnp.float32)
+        @jax.jit
+        def xla_decode(q, k, v):
+            qf = q.astype(jnp.float32)
             kr = jnp.repeat(k, hq // hkv, axis=1).astype(jnp.float32)
             vr = jnp.repeat(v, hq // hkv, axis=1).astype(jnp.float32)
             s = jnp.einsum("bhqd,bhkd->bhqk", qf, kr) * d**-0.5
@@ -68,10 +67,10 @@ def main():
                 "bhqk,bhkd->bhqd", jax.nn.softmax(s, -1), vr
             )
 
-        t_xla = device_time(xla_decode, (q, k, v), n=10)
+        t_xla = time_ms(xla_decode, q, k, v, n=10) * 1e-3
 
-        # paged variant: scrambled physical pages, 4096-token pages
-        page = min(4096, S)
+        # paged variant: scrambled physical pages, 1024-token pages
+        page = min(1024, S)
         n_pg = S // page
         pt = jax.random.permutation(
             jax.random.PRNGKey(9), b * n_pg
@@ -80,22 +79,14 @@ def main():
             b * n_pg, hkv, d, pt, page_size=page, bits=args.bits
         )
         pcache, plens = kvcache.paged_prefill(pcache, k, v)
-        t_paged = device_time(
-            lambda i, c, q, pcache: kvcache.sageattn_paged_decode(
-                q + (c * 1e-30).astype(q.dtype), pcache, plens),
-            (q, pcache),
-            n=10,
-        )
+        t_paged = time_ms(jax.jit(kvcache.sageattn_paged_decode), q,
+                          pcache, plens, n=10) * 1e-3
         cache_bytes = 2 * b * hkv * S * d * args.bits // 8  # K + V
         ext = ""
         if args.extend:
             qe = rng(4, (b, hq, args.extend, d))
-            t_ext = device_time(
-                lambda i, c, q, cache: kvcache.sageattn_decode(
-                    q + (c * 1e-30).astype(q.dtype), cache, lengths),
-                (qe, cache),
-                n=5,
-            )
+            t_ext = time_ms(jax.jit(kvcache.sageattn_decode), qe, cache,
+                            lengths, n=5) * 1e-3
             # extend-block attention FLOPs: 4*b*hq*t*S*d / 2 is not
             # right for the causal tail (tail is tiny vs S) — report
             # straight 4*t*S*d throughput

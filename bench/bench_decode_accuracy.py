@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sageattention_tpu import kvcache
+from sageattention_jax import kvcache
 
 
 def make_kv(dist, b, hkv, s, d):

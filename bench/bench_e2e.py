@@ -17,8 +17,8 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-from bench.utils import attention_flops, device_time
-from sageattention_tpu import sageattn
+from bench.utils import attention_flops, card, require_gpu, time_ms
+from sageattention_jax import sageattn
 
 
 def main():
@@ -30,25 +30,22 @@ def main():
     ap.add_argument("--causal", action="store_true")
     ap.add_argument("--pv_dtype", default="int8")
     args = ap.parse_args()
+    require_gpu()
 
     b, h, d = args.batch, args.heads, args.head_dim
-    print(f"# op-total sageattn pv={args.pv_dtype} causal={args.causal} "
+    print(f"# {card()}: op-total sageattn pv={args.pv_dtype} causal={args.causal} "
           f"b={b} h={h} hd={d}")
     for s in (int(x) for x in args.seqs.split(",")):
         q = jax.random.normal(jax.random.PRNGKey(0), (b, h, s, d), jnp.bfloat16)
         k = jax.random.normal(jax.random.PRNGKey(1), (b, h, s, d), jnp.bfloat16)
         v = jax.random.normal(jax.random.PRNGKey(2), (b, h, s, d), jnp.bfloat16)
 
-        f = functools.partial(
+        f = jax.jit(functools.partial(
             sageattn, is_causal=args.causal, pv_dtype=args.pv_dtype
-        )
-
-        def one(i, c, q, k, v):
-            return f(q + (c * 1e-30).astype(q.dtype), k, v)
-
-        t = device_time(one, (q, k, v))
-        tops = attention_flops(b, h, s, d, args.causal) / t / 1e12
-        print(f"seq {s:6d}: {t*1e3:8.3f} ms  {tops:7.1f} TOPS (op-total)",
+        ))
+        ms = time_ms(f, q, k, v)
+        tops = attention_flops(b, h, s, d, args.causal) / (ms * 1e-3) / 1e12
+        print(f"seq {s:6d}: {ms:8.3f} ms  {tops:7.1f} TOPS (op-total)",
               flush=True)
 
 

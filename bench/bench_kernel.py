@@ -9,10 +9,13 @@ matrix to this framework's V-storage dtypes:
 
     pv int8  ~ qk_int8_sv_f8  (quantized V, per-channel scales)
     pv bf16  ~ qk_int8_sv_f16 (high-accuracy fallback)
-    pv fp8   ~ qk_int8_sv_f8  (fp8 V storage; TPU gens with fp8 support)
+    pv fp8   ~ qk_int8_sv_f8  (e4m3 V storage)
+
+The kernel is the Pallas-through-Triton one (ops/attention_triton.py);
+``--block_q/--block_k/--num_warps/--num_stages`` override its tile table.
 
 Usage: python bench/bench_kernel.py [--pv_dtype int8] [--causal]
-         [--head_dim 128] [--seqs 1024,...] [--quant_gran auto|per_token]
+         [--head_dim 128] [--seqs 1024,...]
 """
 
 import argparse
@@ -24,90 +27,30 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-from bench.utils import attention_flops, device_time
-from sageattention_tpu import quant
-from sageattention_tpu.ops.attention_pallas import (
-    effective_chunk_k,
-    sage_attention_fused,
-)
-
-LOG2E = 1.4426950408889634
+from bench.utils import attention_flops, card, require_gpu, time_ms
+from sageattention_jax import core
+from sageattention_jax.ops import attention_triton
 
 
-def bench_one(b, h, s, d, *, causal, pv_dtype, quant_gran, block_q,
-              block_k, chunk_k=None, sub_q=128, vt=None, **fused_kwargs):
+def bench_one(b, h, s, d, *, causal, pv_dtype, block_q=None, block_k=None,
+              num_warps=None, num_stages=None):
     q = jax.random.normal(jax.random.PRNGKey(0), (b, h, s, d), jnp.bfloat16)
     k = jax.random.normal(jax.random.PRNGKey(1), (b, h, s, d), jnp.bfloat16)
     v = jax.random.normal(jax.random.PRNGKey(2), (b, h, s, d), jnp.bfloat16)
-
-    chunk_k = chunk_k or effective_chunk_k(block_k)
-    q_i8, qs = quant.quant_int8(
-        q, granularity="per_token", scale_fold=d**-0.5 * LOG2E
+    block_k = block_k or core.default_blocks(d)[1]
+    qz = core.quantize_operands(
+        q, k, v, sm_scale=d**-0.5, qk_quant_gran="auto", pv_dtype=pv_dtype,
+        smooth_k=True, smooth_q=False, smooth_v=False, qk_bits=8,
+        k_group=block_k,
     )
-    if quant_gran == "auto":
-        k_i8, ks = quant.quant_int8_block_scales(k, group=chunk_k)
-    else:
-        k_i8, ks = quant.quant_int8(k, granularity=quant_gran)
-    if pv_dtype == "bf16":
-        v_q, vs = v, None
-    else:
-        dt = jnp.int8 if pv_dtype == "int8" else jnp.float8_e4m3fn
-        v_q, vs, _ = quant.per_channel_quant(v, dtype=dt)
-    # mirror core.py's production dispatch: d <= 64 rides the transposed
-    # (vt) kernel when eligible; pass vt=False to force the normal
-    # orientation + free-lane rowsum for comparison
-    if vt is None:
-        # core.py's gate: always transposed when eligible at d <= 128
-        # (measured better at EVERY swept hd64 AND hd128 shape, r4)
-        vt = (
-            d <= 128 and quant_gran == "auto"
-            and not fused_kwargs.get("k_inkernel")
-        )
-    rowsum_lane = None
-    if vt:
-        # mirror core.py: no ones-row rowsum in the transposed form (l is
-        # a cheap cross-sublane sum there; the ones-row analogue measured
-        # 27% slower — int8 tiling breaks at 72 sublanes)
-        q_i8 = jnp.swapaxes(q_i8, 2, 3)
-        v_q = jnp.swapaxes(v_q, 2, 3)
-    elif d <= 64:
-        # V pads to 128 lanes anyway, so a ones column at lane 64 makes
-        # the PV matmul emit sum(p) for free
-        rowsum_lane = 64
-        v_q = jnp.pad(v_q, ((0, 0), (0, 0), (0, 0), (0, 128 - v_q.shape[-1])))
-        v_q = v_q.at[:, :, :, rowsum_lane].set(jnp.ones((), v_q.dtype))
-        if vs is not None:
-            vs = jnp.pad(vs, ((0, 0), (0, 0), (0, 128 - vs.shape[-1])))
-
-    fo = functools.partial(
-        sage_attention_fused,
-        pv_dtype=pv_dtype,
-        is_causal=causal,
-        block_q=block_q,
-        block_k=block_k,
-        chunk_k=chunk_k,
-        sub_q=sub_q,
-        rowsum_lane=rowsum_lane,
-        vt=vt,
-        **fused_kwargs,
-    )
-
-    from bench.utils import device_time_carry
-
-    if vs is None:
-        def one(qss, qi, ki, kss, vq):
-            return fo(qi, qss, ki, kss, vq)
-        extra = (q_i8, k_i8, ks, v_q)
-    else:
-        def one(qss, qi, ki, kss, vq, vsc):
-            return fo(qi, qss, ki, kss, vq, vsc)
-        extra = (q_i8, k_i8, ks, v_q, vs)
-
-    # the q-scale vector rides the scan carry with an in-place scalar
-    # perturbation (an additive perturbation materializes a copy per
-    # iteration — small here, but free to avoid; see bench/utils)
-    t = device_time_carry(one, qs, extra)
-    return attention_flops(b, h, s, d, causal) / t / 1e12, t
+    f = jax.jit(functools.partial(
+        attention_triton.sage_attention_fwd, is_causal=causal,
+        block_q=block_q, block_k=block_k, num_warps=num_warps,
+        num_stages=num_stages,
+    ))
+    ms = time_ms(f, qz.q_i8, qz.q_scale, qz.k_i8, qz.k_scale, qz.v_q,
+                 qz.v_scale, qz.v_mean)
+    return attention_flops(b, h, s, d, causal) / (ms * 1e-3) / 1e12, ms
 
 
 def main():
@@ -119,39 +62,23 @@ def main():
     ap.add_argument("--causal", action="store_true")
     ap.add_argument("--pv_dtype", default="int8",
                     choices=["int8", "bf16", "fp8"])
-    ap.add_argument("--quant_gran", default="auto")
-    ap.add_argument("--block_q", type=int, default=0,
-                    help="0 = tuned default_config")
-    ap.add_argument("--block_k", type=int, default=0,
-                    help="0 = auto (min(4096, seq); 2048 for causal)")
-    ap.add_argument("--chunk_k", type=int, default=0)
-    ap.add_argument("--sub_q", type=int, default=0)
+    ap.add_argument("--block_q", type=int, default=None)
+    ap.add_argument("--block_k", type=int, default=None)
+    ap.add_argument("--num_warps", type=int, default=None)
+    ap.add_argument("--num_stages", type=int, default=None)
     args = ap.parse_args()
+    require_gpu()
 
-    print(f"# pv={args.pv_dtype} causal={args.causal} "
-          f"b={args.batch} h={args.heads} hd={args.head_dim} "
-          f"gran={args.quant_gran}")
-    from sageattention_tpu.ops.attention_pallas import default_config
-
+    print(f"# {card()}: pv={args.pv_dtype} causal={args.causal} "
+          f"b={args.batch} h={args.heads} hd={args.head_dim}")
     for s in (int(x) for x in args.seqs.split(",")):
-        bq_t, bk_t, sub_t, ck_t = default_config(
-            s, s, args.head_dim, args.causal,
-            vt=args.head_dim <= 128 and args.quant_gran == "auto",
+        tops, ms = bench_one(
+            args.batch, args.heads, s, args.head_dim, causal=args.causal,
+            pv_dtype=args.pv_dtype, block_q=args.block_q,
+            block_k=args.block_k, num_warps=args.num_warps,
+            num_stages=args.num_stages,
         )
-        tops, t = bench_one(
-            args.batch, args.heads, s, args.head_dim,
-            causal=args.causal, pv_dtype=args.pv_dtype,
-            quant_gran=args.quant_gran,
-            block_q=min(args.block_q, s) if args.block_q else bq_t,
-            block_k=args.block_k or bk_t,
-            # a user block_k needs a matching chunk (the tuned default's
-            # chunk may not divide it); --chunk_k still overrides
-            chunk_k=args.chunk_k or (
-                effective_chunk_k(args.block_k) if args.block_k else ck_t
-            ),
-            sub_q=args.sub_q or sub_t,
-        )
-        print(f"seq {s:6d}: {t*1e3:8.3f} ms  {tops:7.1f} TOPS", flush=True)
+        print(f"seq {s:6d}: {ms:8.3f} ms  {tops:7.1f} TOPS", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,14 @@
 #!/usr/bin/env python
-"""Sequence-parallel scaling benchmark (the BASELINE.md ">= 85% scaling
-efficiency" harness).
+"""Sequence-parallel scaling benchmark.
 
 Measures ring-KV / Ulysses / composed attention over an N-device mesh
 against the single-device kernel on the same *global* problem:
 
     efficiency = t_single / (t_parallel * n_devices_used_for_seq)
 
-On a real multi-chip TPU slice this is the headline scaling number; on a
-CPU host it runs on virtual devices (SAGE_CPU_DEVICES=8) and validates
-mechanics only — interpret-mode wall times are not meaningful.
+On the cards of one host this is the scaling number; on a CPU host it
+runs on virtual devices (SAGE_CPU_DEVICES=8) and validates mechanics
+only — CPU wall times are not a device metric.
 
 Usage:
   python bench/bench_scaling.py --seq 8192 --ring 4          # ring CP
@@ -36,9 +35,9 @@ if os.environ.get("SAGE_CPU_DEVICES"):
 import jax
 import jax.numpy as jnp
 
-from bench.utils import attention_flops, device_time
-from sageattention_tpu import sageattn
-from sageattention_tpu.parallel import make_mesh, make_parallel_sageattn
+from bench.utils import attention_flops, time_ms
+from sageattention_jax import sageattn
+from sageattention_jax.parallel import make_mesh, make_parallel_sageattn
 
 
 def main():
@@ -65,11 +64,8 @@ def main():
     fl = attention_flops(b, h, s, d, args.causal)
 
     # single device, global problem
-    def one_single(i, c, q, k, v):
-        return sageattn(q + (c * 1e-30).astype(q.dtype), k, v,
-                        is_causal=args.causal)
-
-    t1 = device_time(one_single, (q, k, v), n=5)
+    t1 = time_ms(jax.jit(lambda q, k, v: sageattn(
+        q, k, v, is_causal=args.causal)), q, k, v, n=5) * 1e-3
     print(f"single device: {t1*1e3:8.3f} ms  ({fl/t1/1e12:6.1f} TOPS)",
           flush=True)
 
@@ -81,10 +77,7 @@ def main():
         mesh, data_axis=None, is_causal=args.causal
     )
 
-    def one_par(i, c, q, k, v):
-        return fp(q + (c * 1e-30).astype(q.dtype), k, v)
-
-    tp = device_time(one_par, (q, k, v), n=5)
+    tp = time_ms(fp, q, k, v, n=5) * 1e-3
     eff = t1 / (tp * n_sp)
     print(f"ring={args.ring} ulysses={args.ulysses} over {n_sp} devices: "
           f"{tp*1e3:8.3f} ms  scaling efficiency {eff*100:5.1f}%",

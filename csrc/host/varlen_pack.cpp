@@ -4,16 +4,16 @@
 // host-side: cumulative sequence offsets and the derived per-scale offsets
 // (reference: sageattention/triton/quant_per_block_varlen.py:72-79 computes
 // cu_seqlens_scale on the host; sageattention/core.py:362-477 consumes
-// cu_seqlens).  On TPU the kernel consumes segment ids instead of offset
+// cu_seqlens).  Here attention consumes segment ids instead of offset
 // arithmetic, so the host work is: packing N ragged sequences into one
 // contiguous buffer and expanding cu_seqlens into segment-id / position
 // vectors.  Those are memory-bound loops over potentially hundreds of MB of
 // activations per batch — this C++ implementation runs them multithreaded
-// at memcpy speed (sageattention_tpu/native.py holds the ctypes binding and
+// at memcpy speed (sageattention_jax/native.py holds the ctypes binding and
 // a numpy fallback).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libsagehost.so varlen_pack.cpp -lpthread
-// (driven by setup.py / sageattention_tpu.native.ensure_built()).
+// (driven by setup.py / sageattention_jax.native.ensure_built()).
 
 #include <algorithm>
 #include <cstdint>

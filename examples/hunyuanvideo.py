@@ -11,7 +11,7 @@ import sys
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from examples.common import base_parser, run_video_example
-from sageattention_tpu import models
+from sageattention_jax import models
 
 if __name__ == "__main__":
     args = base_parser(__doc__).parse_args()

@@ -24,8 +24,8 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-from sageattention_tpu import models
-from sageattention_tpu.models.configs import MODEL_CONFIGS
+from sageattention_jax import models
+from sageattention_jax.models.configs import MODEL_CONFIGS
 
 
 def main():
@@ -115,7 +115,7 @@ def main():
     kind = (f"paged int{args.bits} cache, {args.page_size}-token pages"
             if args.paged else f"int{args.bits} KV cache")
     if args.speculate:
-        from sageattention_tpu.speculative import speculative_verify
+        from sageattention_jax.speculative import speculative_verify
 
         # the demo records one token stream; per-batch acceptance
         # counts would need per-batch bookkeeping

@@ -17,9 +17,9 @@ import jax
 import jax.numpy as jnp
 
 from examples.common import scaled_config
-from sageattention_tpu import models
-from sageattention_tpu.models.attention import SageAttnProcessor
-from sageattention_tpu.utils.compare import cosine_similarity
+from sageattention_jax import models
+from sageattention_jax.models.attention import SageAttnProcessor
+from sageattention_jax.utils.compare import cosine_similarity
 
 
 def main():

@@ -1,10 +1,10 @@
 #!/usr/bin/env bash
-# Multi-chip launch (reference: example/run_parallel.sh).
+# Multi-card launch rehearsal (reference: example/run_parallel.sh).
 #
 # The reference launches torchrun --nproc_per_node=2 with xDiT degrees;
-# on TPU there is one process per host and the mesh spans the slice's
-# chips automatically.  Without a multi-chip slice, validate the sharded
-# graph on a virtual CPU mesh:
+# here one process drives every card of the host through one mesh.  This
+# script validates the sharded graph on a virtual CPU mesh; on the cards
+# run examples/parallel_video.py directly (or chip_smoke.py --cards 4):
 set -e
 cd "$(dirname "$0")/.."
 

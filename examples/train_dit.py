@@ -1,19 +1,17 @@
 #!/usr/bin/env python
 """Training loop: diffusion (flow-matching) training of the video DiT
-with sage attention end-to-end — forward AND backward through the fused
-quantized kernels (the straight-through VJP, ops/attention_bwd_pallas).
+with sage attention end-to-end — the quantized forward AND the
+straight-through blockwise backward (ops/blockwise.py).
 
 The reference is inference-only; training is this framework's
-beyond-reference axis: `jax.grad` through `sageattn` runs the fused
-Pallas backward (faster than jax's tuned flash fwd+bwd at the headline
-shape — the tracked number is `sage_fwdbwd_ms_*` in the bench
-artifact).  This loop demonstrates the whole story: optax AdamW, jitted
-train step, loss going down, optional multi-device data parallelism.
+beyond-reference axis: `jax.grad` through `sageattn` runs the custom
+VJP.  This loop demonstrates the whole story: optax AdamW, jitted train
+step, loss going down, optional multi-device data parallelism.
 
 Checkpoint/resume (the reference has no persistence at all — SURVEY §5):
-`--ckpt_dir` saves params/opt_state/step with orbax every `--ckpt_every`
-steps and resumes from the latest checkpoint on restart, so a preempted
-TPU job continues where it stopped.
+`--ckpt_dir` saves params/opt_state with ``utils.checkpoint`` (numpy
+.npz) every `--ckpt_every` steps and resumes from the latest checkpoint
+on restart, so a preempted job continues where it stopped.
 
 Usage: python examples/train_dit.py [--steps 20] [--scale 0.1]
        [--attention_type sage] [--dp N] [--lr 1e-4]
@@ -31,7 +29,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from sageattention_tpu import models
+from sageattention_jax import models
+from sageattention_jax.utils import checkpoint
 
 
 def main():
@@ -41,7 +40,7 @@ def main():
                     help="data-parallel degree (devices); gradients "
                          "psum over the mesh")
     ap.add_argument("--ckpt_dir", default=None,
-                    help="orbax checkpoint directory; resumes from the "
+                    help="checkpoint directory; resumes from the "
                          "latest step if one exists")
     ap.add_argument("--ckpt_every", type=int, default=5,
                     help="save a checkpoint every N steps")
@@ -71,28 +70,16 @@ def main():
     tx = optax.adamw(args.lr, weight_decay=0.01)
     opt_state = tx.init(params)
 
-    # -- checkpoint/resume (orbax) -------------------------------------
-    mngr, start = None, 0
-    if args.ckpt_dir:
-        import os
-
-        import orbax.checkpoint as ocp
-
-        mngr = ocp.CheckpointManager(
-            os.path.abspath(args.ckpt_dir),
-            options=ocp.CheckpointManagerOptions(max_to_keep=2),
+    # -- checkpoint/resume ---------------------------------------------
+    start = 0
+    latest = checkpoint.latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if latest is not None:
+        restored = checkpoint.restore(
+            args.ckpt_dir, latest, {"params": params, "opt_state": opt_state}
         )
-        latest = mngr.latest_step()
-        if latest is not None:
-            restored = mngr.restore(
-                latest,
-                args=ocp.args.StandardRestore(
-                    {"params": params, "opt_state": opt_state}
-                ),
-            )
-            params, opt_state = restored["params"], restored["opt_state"]
-            start = latest + 1
-            print(f"resumed from {args.ckpt_dir} at step {latest}")
+        params, opt_state = restored["params"], restored["opt_state"]
+        start = latest + 1
+        print(f"resumed from {args.ckpt_dir} at step {latest}")
 
     def loss_fn(params, x0, txt, key):
         """Rectified-flow matching: x_t = (1-t) x0 + t eps, the model
@@ -158,19 +145,14 @@ def main():
             print(f"step {start} (compile): {time.time()-t0:.1f}s "
                   f"loss {losses[0]:.4f}")
             t0 = time.time()
-        if mngr is not None and (
+        if args.ckpt_dir and (
             (i + 1) % args.ckpt_every == 0 or i == args.steps - 1
         ):
-            mngr.save(
-                i,
-                args=ocp.args.StandardSave(
-                    {"params": params, "opt_state": opt_state}
-                ),
-            )
-    if mngr is not None:
-        mngr.wait_until_finished()
-        print(f"checkpointed through step {mngr.latest_step()} "
-              f"in {args.ckpt_dir}")
+            checkpoint.save(args.ckpt_dir, i,
+                            {"params": params, "opt_state": opt_state})
+    if args.ckpt_dir:
+        print(f"checkpointed through step "
+              f"{checkpoint.latest_step(args.ckpt_dir)} in {args.ckpt_dir}")
     jax.block_until_ready(loss)
     n = max(1, args.steps - 1 - start)
     print(f"steps {start + 1}..{args.steps - 1}: "
@@ -178,7 +160,7 @@ def main():
           f"ms/step, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     if start == 0:
         assert losses[-1] < losses[0], "loss did not decrease"
-        print("loss decreased OK (fused quantized fwd+bwd)")
+        print("loss decreased OK (quantized fwd + blockwise bwd)")
 
 
 if __name__ == "__main__":

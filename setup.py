@@ -1,12 +1,12 @@
 """Build & packaging (reference: the reference's setup.py:76-260 probes GPU
 arches and conditionally compiles CUDA/HIP extensions).
 
-TPU needs no device-code compilation — Mosaic compiles the Pallas kernels
-at trace time for whatever TPU generation is attached, so the per-arch
-extension matrix disappears.  The only native piece is the host-side
+No device code is compiled at install time — the attention kernel is
+Pallas, which Triton compiles when it is first traced on the GPU, so the
+per-arch extension matrix disappears.  The only native piece is the host-side
 varlen/data-prep library (csrc/host/varlen_pack.cpp, plain C++ with a
 ctypes binding); it is built here when a toolchain exists and on demand at
-runtime otherwise (sageattention_tpu/native.py falls back to numpy when
+runtime otherwise (sageattention_jax/native.py falls back to numpy when
 neither works).
 """
 
@@ -23,7 +23,7 @@ class BuildWithNative(build_py):
             import sys
 
             sys.path.insert(0, ".")
-            from sageattention_tpu.native import ensure_built
+            from sageattention_jax.native import ensure_built
 
             path = ensure_built()
             if path:

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import sageattention_tpu as sa
-from sageattention_tpu.ops import reference
+import sageattention_jax as sa
+from sageattention_jax.ops import reference
 
 
 def rand(key, shape, scale=1.0, dtype=jnp.float32):
@@ -84,14 +84,16 @@ class TestSageattn:
 
     def test_xla_impl_parity(self):
         q, k, v = (rand(i + 24, (1, 2, 128, 64)) for i in range(3))
-        o_p = sa.sageattn(q, k, v, impl="pallas", pv_dtype="bf16")
+        o_p = sa.sageattn(q, k, v, impl="pallas", pv_dtype="bf16",
+                          interpret=True)
         o_x = sa.sageattn(q, k, v, impl="xla", pv_dtype="bf16")
         np.testing.assert_allclose(np.asarray(o_p), np.asarray(o_x), atol=2e-2)
 
     def test_attn_bias(self):
-        # additive bias rides the quantized Pallas kernel (in-kernel
-        # add, reference: attn_qk_int8_per_thread.py:49-56), so parity
-        # is at quantization accuracy, not machine precision
+        # additive bias rides the quantized blockwise path (the bias
+        # joins the dequantized logits, reference:
+        # attn_qk_int8_per_thread.py:49-56), so parity is at
+        # quantization accuracy, not machine precision
         q, k, v = (rand(i + 27, (1, 2, 64, 32)) for i in range(3))
         bias = rand(30, (1, 2, 64, 64), scale=2.0)
         o = sa.sageattn(q, k, v, attn_bias=bias)
@@ -99,17 +101,14 @@ class TestSageattn:
         assert cosine(o, o_ref) > 0.999
 
     def test_attn_bias_pallas_vs_xla(self):
-        # the in-kernel bias path against the same pipeline's XLA
-        # (score-materializing) implementation: identical quantization,
-        # so agreement is tight
+        # the default (auto) bias path against an explicit impl="xla":
+        # both are the blockwise path
         q, k, v = (rand(i + 61, (1, 2, 128, 64)) for i in range(3))
         bias = rand(64, (1, 2, 128, 128), scale=2.0)
         o_p = sa.sageattn(q, k, v, attn_bias=bias, pv_dtype="bf16")
         o_x = sa.sageattn(
             q, k, v, attn_bias=bias, pv_dtype="bf16", impl="xla"
         )
-        # impl="xla" with a bias runs the unquantized reference; compare
-        # at quantization accuracy
         assert cosine(o_p, o_x) > 0.999
 
 
@@ -212,8 +211,7 @@ class TestVarlen:
     def test_varlen_forwards_qk_bits_and_smooth_q(self):
         q, k, v = (rand(i + 70, (128, 2, 32)) for i in range(3))
         cu = jnp.array([0, 50, 128], jnp.int32)
-        # qk_bits reaches the kernel (trace only: the CPU backend has no
-        # native-int4 dot to execute)
+        # qk_bits reaches the quantizer (±7 codes in int8 storage)
         jax.eval_shape(
             lambda *a: sa.sageattn_varlen(*a, qk_bits=4), q, k, v, cu, cu
         )
@@ -260,8 +258,8 @@ class TestAttnMask:
         assert cosine(o, o_ref) > 0.999
 
     def test_bool_mask_multistep_block_skip(self):
-        """Multi-KV-step grid with a fully-masked KV block region: the
-        in-kernel summary skip must not change results."""
+        """Several KV chunks with a fully-masked KV region and a fully
+        dead row (which must come out exactly 0)."""
         q = jax.random.normal(jax.random.PRNGKey(10), (1, 2, 512, 64))
         k = jax.random.normal(jax.random.PRNGKey(11), (1, 2, 512, 64))
         v = jax.random.normal(jax.random.PRNGKey(12), (1, 2, 512, 64))
@@ -345,8 +343,8 @@ class TestAttnMask:
             sa.sageattn(q, k, v, q_positions=seg)
 
     def test_bias_path_honors_positions(self):
-        """attn_bias now rides the quantized Pallas kernel; shifted
-        positions must still shape the causal mask alongside it."""
+        """Shifted positions must still shape the causal mask alongside
+        an additive bias."""
         b, h, s, d = 1, 2, 64, 32
         q, k, v = (rand(i + 40, (b, h, s, d)) for i in range(3))
         bias = jnp.zeros((1, 1, s, s))
@@ -375,8 +373,7 @@ class TestAttnMask:
         assert cosine(o, o_ref) > 0.999
 
     def test_bias_causal_multistep(self):
-        """Additive bias + causal on a multi-KV-step grid (in-kernel
-        bias joins the diagonal's static masks and the fold decode)."""
+        """Additive bias + causal over several KV chunks."""
         q = jax.random.normal(jax.random.PRNGKey(50), (1, 2, 512, 64))
         k = jax.random.normal(jax.random.PRNGKey(51), (1, 2, 512, 64))
         v = jax.random.normal(jax.random.PRNGKey(52), (1, 2, 512, 64))
@@ -529,8 +526,7 @@ class TestSmoothQ:
 
 class TestSlidingWindow:
     """Causal sliding-window attention (Mistral/Gemma-style): key j
-    visible iff q - window < j <= q; in-kernel band masks with block
-    skip and DMA clamping from both edges."""
+    visible iff q - window < j <= q; band masks per KV chunk."""
 
     def _band_ref(self, q, k, v, w):
         sq, sk = q.shape[2], k.shape[2]

@@ -1,9 +1,9 @@
-"""Checkpoint/resume (orbax) — aux-subsystem test.
+"""Checkpoint/resume (numpy .npz) — aux-subsystem test.
 
 The reference has no persistence at all (SURVEY §5, "Checkpoint /
 resume: None" — it is an inference-only op library).  This framework's
 training loop (examples/train_dit.py) checkpoints params + optimizer
-state with orbax and resumes from the latest step.  The test proves the
+state with ``utils.checkpoint`` and resumes from the latest step.  The test proves the
 resume is *exact*: training N steps straight produces the same state as
 training k steps, checkpointing, restoring into fresh buffers, and
 training the remaining N-k.
@@ -11,9 +11,11 @@ training the remaining N-k.
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import optax
-import orbax.checkpoint as ocp
 import pytest
+
+from sageattention_jax.utils import checkpoint
 
 
 def _make_problem():
@@ -50,30 +52,19 @@ class TestCheckpointResume:
             p_a, s_a, _ = step(p_a, s_a)
 
         # run to `cut`, checkpoint, restore into fresh buffers, finish
-        mngr = ocp.CheckpointManager(
-            tmp_path / "ckpt",
-            options=ocp.CheckpointManagerOptions(max_to_keep=2),
-        )
+        ckpt = tmp_path / "ckpt"
         p_b, s_b = params, opt_state
         for i in range(cut):
             p_b, s_b, _ = step(p_b, s_b)
-            mngr.save(
-                i, args=ocp.args.StandardSave(
-                    {"params": p_b, "opt_state": s_b})
-            )
-        mngr.wait_until_finished()
-        assert mngr.latest_step() == cut - 1
+            checkpoint.save(ckpt, i, {"params": p_b, "opt_state": s_b})
+        assert checkpoint.latest_step(ckpt) == cut - 1
 
-        # fresh manager (new process analogue); template = init trees
+        # fresh template (new process analogue) = init trees
         params2, opt_state2, _ = _make_problem()
-        mngr2 = ocp.CheckpointManager(tmp_path / "ckpt")
-        latest = mngr2.latest_step()
+        latest = checkpoint.latest_step(ckpt)
         assert latest == cut - 1
-        restored = mngr2.restore(
-            latest,
-            args=ocp.args.StandardRestore(
-                {"params": params2, "opt_state": opt_state2}
-            ),
+        restored = checkpoint.restore(
+            ckpt, latest, {"params": params2, "opt_state": opt_state2}
         )
         p_c, s_c = restored["params"], restored["opt_state"]
         for _ in range(latest + 1, total):
@@ -93,17 +84,23 @@ class TestCheckpointResume:
 
     def test_max_to_keep_prunes(self, tmp_path):
         params, opt_state, step = _make_problem()
-        mngr = ocp.CheckpointManager(
-            tmp_path / "ckpt",
-            options=ocp.CheckpointManagerOptions(max_to_keep=2),
-        )
+        ckpt = tmp_path / "ckpt"
         p, s = params, opt_state
         for i in range(5):
             p, s, _ = step(p, s)
-            mngr.save(
-                i, args=ocp.args.StandardSave(
-                    {"params": p, "opt_state": s})
-            )
-        mngr.wait_until_finished()
-        assert mngr.latest_step() == 4
-        assert sorted(mngr.all_steps()) == [3, 4]
+            checkpoint.save(ckpt, i, {"params": p, "opt_state": s})
+        assert checkpoint.latest_step(ckpt) == 4
+        assert checkpoint.all_steps(ckpt) == [3, 4]
+
+    def test_bf16_and_mismatch(self, tmp_path):
+        """bf16 leaves round-trip bit-exactly; a template of another
+        structure is refused."""
+        tree = {"w": jnp.arange(6, dtype=jnp.bfloat16).reshape(2, 3) / 7,
+                "n": jnp.int32(3)}
+        checkpoint.save(tmp_path, 0, tree)
+        back = checkpoint.restore(tmp_path, 0, tree)
+        assert back["w"].dtype == jnp.bfloat16
+        np.testing.assert_array_equal(np.asarray(back["w"], np.float32),
+                                      np.asarray(tree["w"], np.float32))
+        with pytest.raises(ValueError):
+            checkpoint.restore(tmp_path, 0, {"w": tree["w"]})

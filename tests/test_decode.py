@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sageattention_tpu import kvcache
+from sageattention_jax import kvcache
 
 
 def rand(key, shape, dtype=jnp.float32):
@@ -71,22 +71,17 @@ class TestDecode:
 
     def test_nibble_pack_roundtrip(self):
         """pack_token_pairs / unpack_token_pairs are exact inverses over
-        the whole [-8, 7] nibble range, and the kernels' interpret-mode
-        int4 view (_bitcast_int4_tokens) matches the unpack."""
-        from sageattention_tpu.ops.decode_pallas import (
-            _bitcast_int4_tokens,
-        )
-
+        the whole [-8, 7] nibble range, with tokens in natural order."""
         rng = np.random.default_rng(7)
         x = rng.integers(-8, 8, size=(16, 128)).astype(np.int8)
         packed = kvcache.pack_token_pairs(jnp.asarray(x))
         assert packed.shape == (8, 128) and packed.dtype == jnp.int8
         out = np.asarray(kvcache.unpack_token_pairs(packed))
         np.testing.assert_array_equal(out, x)
-        view = np.asarray(
-            _bitcast_int4_tokens(packed, interpret=True).astype(jnp.int8)
+        # token 2t sits in the low nibble of byte t, 2t+1 in the high one
+        np.testing.assert_array_equal(
+            np.asarray(packed[0]).astype(np.int32) & 0x0F, x[0] & 0x0F
         )
-        np.testing.assert_array_equal(view, x)
 
     def test_packed_write_parity(self):
         """write_rows_packed: odd offsets, odd lengths, out-of-range
@@ -213,7 +208,7 @@ class TestDecode:
     def test_decode_loop_matches_full_attention(self):
         """A miniature serving loop: prefill then 4 decode steps; each
         step's output matches full causal attention's last row."""
-        from sageattention_tpu.ops import reference
+        from sageattention_jax.ops import reference
 
         b, hq, hkv, d, S = 1, 4, 4, 32, 128
         n_prefill, n_steps = 20, 4
@@ -333,8 +328,8 @@ class TestWindowedDecode:
     def test_windowed_llm_loop_matches_band_refeed(self):
         """CausalLM with cfg.window: the cached decode loop must pick
         the same tokens as re-running windowed prefill each step."""
-        from sageattention_tpu import models
-        from sageattention_tpu.models.configs import MODEL_CONFIGS
+        from sageattention_jax import models
+        from sageattention_jax.models.configs import MODEL_CONFIGS
 
         cfg = MODEL_CONFIGS["llm-7b"].scaled(
             depth=2, hidden=128, heads=4, kv_heads=2, head_dim=32,
@@ -380,8 +375,8 @@ class TestCachedGeneration:
     def test_decode_loop_matches_refeed(self):
         """Greedy generation with the int8 KV cache must pick the same
         tokens as re-running the full prefill each step."""
-        from sageattention_tpu import models
-        from sageattention_tpu.models.configs import MODEL_CONFIGS
+        from sageattention_jax import models
+        from sageattention_jax.models.configs import MODEL_CONFIGS
 
         cfg = MODEL_CONFIGS["llm-7b"].scaled(
             depth=2, hidden=128, heads=4, kv_heads=2, head_dim=32,
@@ -428,8 +423,8 @@ class TestCachedGeneration:
         """The generate loop over paged caches (page-table appends +
         scalar-prefetch decode) must produce the same tokens as the
         dense int8-cache loop."""
-        from sageattention_tpu import models
-        from sageattention_tpu.models.configs import MODEL_CONFIGS
+        from sageattention_jax import models
+        from sageattention_jax.models.configs import MODEL_CONFIGS
 
         cfg = MODEL_CONFIGS["llm-7b"].scaled(
             depth=2, hidden=128, heads=4, kv_heads=2, head_dim=32,
@@ -597,8 +592,7 @@ class TestPagedDecode:
 
 class TestChunkedPrefill:
     """The vLLM "extend" phase: a block of hundreds of new tokens
-    attends the quantized cache + itself causally (t_q >> 1).  The
-    rows-aware chunk cap keeps the [rows, chunk] score tile in VMEM."""
+    attends the quantized cache + itself causally (t_q >> 1)."""
 
     def test_extend_block_matches_causal_oracle(self):
         b, hq, hkv, d, S, t_q = 1, 4, 2, 64, 1024, 128
@@ -657,8 +651,8 @@ class TestChunkedPrefill:
         """CausalLM: prefilling through the cache in extend blocks
         (decode=True per chunk) then decoding must generate the same
         tokens as the one-shot prefill path."""
-        from sageattention_tpu import models
-        from sageattention_tpu.models.configs import MODEL_CONFIGS
+        from sageattention_jax import models
+        from sageattention_jax.models.configs import MODEL_CONFIGS
 
         cfg = MODEL_CONFIGS["llm-7b"].scaled(
             depth=2, hidden=128, heads=4, kv_heads=2, head_dim=32,
@@ -756,7 +750,7 @@ class TestSpeculative:
     decoding on the quantized cache)."""
 
     def test_greedy_verify(self):
-        from sageattention_tpu.speculative import speculative_verify
+        from sageattention_jax.speculative import speculative_verify
         V = 16
         draft = jnp.array([[3, 5, 7]], jnp.int32)
         # target agrees at 0 and 1, wants token 9 at position 2,
@@ -772,7 +766,7 @@ class TestSpeculative:
         assert int(n2[0]) == 3 and int(nxt2[0]) == 11
 
     def test_sampling_verify_identical_dists_accepts_all(self):
-        from sageattention_tpu.speculative import speculative_verify
+        from sageattention_jax.speculative import speculative_verify
         b, k, V = 2, 4, 32
         logits = jax.random.normal(jax.random.PRNGKey(0), (b, k, V))
         tl = jnp.concatenate(
@@ -788,7 +782,7 @@ class TestSpeculative:
         assert np.all(np.asarray(n) == k)
 
     def test_sampling_verify_disjoint_rejects_first(self):
-        from sageattention_tpu.speculative import speculative_verify
+        from sageattention_jax.speculative import speculative_verify
         V = 8
         draft = jnp.array([[2, 3]], jnp.int32)
         dl = jnp.full((1, 2, V), -10.0).at[:, :, 2].set(5.0)
@@ -878,3 +872,33 @@ class TestContinuousBatching:
         ref1 = oracle(q[1], k2[1], v2[1], hq // hkv)
         assert cosine(o[0], ref0) > 0.99    # slot 0 means frozen on k1
         assert cosine(o[1], ref1) > 0.999   # slot 1 recalibrated
+
+
+class TestMergeDecodePartials:
+    def test_shard_partials_merge_to_full_decode(self):
+        """Decodes over disjoint halves of the cache, merged through their
+        (m, l) state, equal the one decode over the whole cache; an empty
+        shard carries zero weight."""
+        b, hq, hkv, d, S = 2, 4, 2, 32, 256
+        cache = kvcache.init_kv_cache(b, hkv, S, d)
+        k, v = rand(81, (b, hkv, S, d)), rand(82, (b, hkv, S, d))
+        cache, _ = kvcache.append_kv(cache, jnp.zeros((b,), jnp.int32), k, v)
+        lengths = jnp.array([S, 100], jnp.int32)
+        q = rand(83, (b, hq, 1, d))
+        full = kvcache.sageattn_decode(q, cache, lengths)
+        halves = []
+        for lo in (0, S // 2):
+            part = kvcache.QuantKVCache(
+                k_i8=cache.k_i8[:, :, lo:lo + S // 2],
+                k_scale=cache.k_scale[:, :, lo:lo + S // 2],
+                v_i8=cache.v_i8[:, :, lo:lo + S // 2],
+                v_scale=cache.v_scale[:, :, lo:lo + S // 2],
+                k_mean=cache.k_mean, v_mean=cache.v_mean,
+            )
+            halves.append(kvcache.sageattn_decode(
+                q, part, lengths - lo, return_state=True))
+        o, m, l = (jnp.stack(x) for x in zip(*halves))
+        assert float(l[1, 1].max()) == 0.0  # batch 1 never reaches shard 1
+        merged = kvcache.merge_decode_partials(o, m, l)
+        np.testing.assert_allclose(np.asarray(merged), np.asarray(full),
+                                   atol=1e-5)

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import sageattention_tpu as sa
-from sageattention_tpu.ops import reference
+import sageattention_jax as sa
+from sageattention_jax.ops import reference
 
 
 pytestmark = pytest.mark.fuzz

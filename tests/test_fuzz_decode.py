@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import sageattention_tpu as sa
+import sageattention_jax as sa
 
 
 pytestmark = pytest.mark.fuzz

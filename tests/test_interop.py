@@ -9,7 +9,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 
-from sageattention_tpu.interop import (
+from sageattention_jax.interop import (
     from_torch,
     patch_torch_sdpa,
     sageattn_torch,

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sageattention_tpu.interop import dot_product_attention, patch_jax_sdpa
-from sageattention_tpu.utils.compare import cosine_similarity
+from sageattention_jax.interop import dot_product_attention, patch_jax_sdpa
+from sageattention_jax.utils.compare import cosine_similarity
 
 B, T, S, N, H = 2, 192, 256, 4, 64
 

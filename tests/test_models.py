@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sageattention_tpu import models
-from sageattention_tpu.models.configs import MODEL_CONFIGS
+from sageattention_jax import models
+from sageattention_jax.models.configs import MODEL_CONFIGS
 
 
 def cosine(a, b):

@@ -4,7 +4,7 @@ varlen pipeline contract between host prep and device segment ids."""
 import numpy as np
 import pytest
 
-from sageattention_tpu import native
+from sageattention_jax import native
 
 
 @pytest.fixture(scope="module")

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sageattention_tpu.ops import reference
-from sageattention_tpu.parallel import (
+from sageattention_jax.ops import reference
+from sageattention_jax.parallel import (
     make_mesh,
     make_parallel_sageattn,
     make_ring_attention,
     make_ulysses_attention,
 )
-import sageattention_tpu as sa
+import sageattention_jax as sa
 
 
 def rand(key, shape, dtype=jnp.float32):
@@ -209,11 +209,8 @@ class TestPositions:
             q, k, v, q_positions=pos, kv_positions=pos, pv_dtype="bf16"
         )
         o_causal = sa.sageattn(q, k, v, is_causal=True, pv_dtype="bf16")
-        # the two dispatches quantize K at different chunk granularities
-        # at hd64 (positions ride the normal orientation's wide chunks;
-        # causal rides the vt kernel's 256-wide chunks since the r4
-        # retune), so agreement is to quantization error, not ULPs
-        # (measured: 0.004% of elements beyond 2e-2, max 0.029)
+        # on a GPU causal rides the kernel (bf16 P) and positions the
+        # blockwise path, so agreement is to that precision, not ULPs
         np.testing.assert_allclose(
             np.asarray(o_pos, np.float32),
             np.asarray(o_causal, np.float32),
@@ -273,12 +270,8 @@ class TestShardedDecode:
     combines the partials."""
 
     @staticmethod
-    def _golden(q, cache, lengths, *, chunk, window=None):
-        from sageattention_tpu.ops import decode_pallas
-        return decode_pallas.sage_decode_attention(
-            q, cache.k_i8, cache.k_scale, cache.v_i8, cache.v_scale,
-            lengths, chunk=chunk, window=window, interpret=True,
-        )
+    def _golden(q, cache, lengths, *, window=None):
+        return sa.sageattn_decode(q, cache, lengths, window=window)
 
     @staticmethod
     def _filled(b, hkv, d, S, L):
@@ -293,10 +286,9 @@ class TestShardedDecode:
         b, hq, hkv, d, S = 2, 8, 2, 64, 1024
         cache, lengths = self._filled(b, hkv, d, S, [700, 300])
         q = rand(33, (b, hq, 1, d))
-        # chunk-matched golden: the shards' P-requant groups are the
-        # 128-row shard chunks; same chunks single-device => only the
-        # (fp32, associative) merge order differs
-        o_single = self._golden(q, cache, lengths, chunk=S // 8)
+        # single-device golden: only the (fp32, associative) merge
+        # order differs
+        o_single = self._golden(q, cache, lengths)
 
         mesh = make_mesh(data=1, seq=8, heads=1)
         mesh = jax.sharding.Mesh(mesh.devices.reshape(8), ("seq",))
@@ -315,7 +307,7 @@ class TestShardedDecode:
         b, hq, hkv, d, S, t_q = 1, 4, 2, 64, 512, 4
         cache, lengths = self._filled(b, hkv, d, S, [L])
         q = rand(34, (b, hq, t_q, d))
-        o_single = self._golden(q, cache, lengths, chunk=S // 4)
+        o_single = self._golden(q, cache, lengths)
         mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("seq",))
         fn = sa.parallel.make_sharded_decode(mesh, axis="seq")
         np.testing.assert_allclose(
@@ -330,7 +322,7 @@ class TestShardedDecode:
         cache, lengths = self._filled(b, hkv, d, S, [900, 520])
         q = rand(35, (b, hq, 1, d))
         o_single = self._golden(
-            q, cache, lengths, chunk=S // 4, window=256
+            q, cache, lengths, window=256
         )
         mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("seq",))
         fn = sa.parallel.make_sharded_decode(
@@ -381,8 +373,7 @@ class TestShardedDecode:
             cache, jnp.zeros((b,), jnp.int32), k, v
         )
         q = rand(63, (b, hq, 1, d))
-        # default-chunk golden: P-requant groups differ (512 vs 128),
-        # so compare at the decode path's inherent accuracy level
+        # calibrated shards: compare at the decode path's accuracy level
         o_single = sa.sageattn_decode(q, cache, lengths)
         mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("seq",))
         fn = sa.parallel.make_sharded_decode(mesh, axis="seq")
@@ -399,7 +390,7 @@ class TestShardedDecode:
         b, hq, hkv, d, S = 1, 8, 2, 64, 512
         cache, lengths = self._filled(b, hkv, d, S, [400])
         q = rand(71, (b, hq, 1, d))
-        o_single = self._golden(q, cache, lengths, chunk=S // 4)
+        o_single = self._golden(q, cache, lengths)
         mesh = jax.sharding.Mesh(
             np.array(jax.devices()).reshape(2, 4), ("tp", "sp")
         )
@@ -495,7 +486,7 @@ class TestShardedPaged:
         )
 
     def test_paged_decode_matches_single_pool(self):
-        import sageattention_tpu.kvcache as kvc
+        import sageattention_jax.kvcache as kvc
         b, hq, hkv, d, S, page = 2, 8, 2, 64, 1024, 128
         k = rand(121, (b, hkv, S, d))
         v = rand(122, (b, hkv, S, d))
@@ -516,7 +507,7 @@ class TestShardedPaged:
 
     def test_paged_sharded_writes_bitexact(self):
         """Sharded prefill + boundary-crossing appends == global pool."""
-        import sageattention_tpu.kvcache as kvc
+        import sageattention_jax.kvcache as kvc
         b, hkv, d, S, page = 2, 2, 32, 512, 128
         k = rand(131, (b, hkv, 256, d))
         v = rand(132, (b, hkv, 256, d))
@@ -543,7 +534,7 @@ class TestShardedPaged:
                 np.asarray(getattr(pool_g, f)), err_msg=f)
 
     def test_paged_sharded_window(self):
-        import sageattention_tpu.kvcache as kvc
+        import sageattention_jax.kvcache as kvc
         b, hq, hkv, d, S, page = 1, 4, 2, 64, 1024, 128
         k = rand(161, (b, hkv, 900, d))
         v = rand(162, (b, hkv, 900, d))
@@ -572,7 +563,7 @@ class TestShardedPaged:
         """An evicted slot (lengths == 0) must decode to 0 across every
         sharded path — a subnormal merge epsilon used to flush to 0
         under XLA and emit NaN."""
-        import sageattention_tpu.kvcache as kvc
+        import sageattention_jax.kvcache as kvc
         b, hq, hkv, d, S, page = 2, 4, 2, 64, 512, 128
         k = rand(171, (b, hkv, S, d))
         v = rand(172, (b, hkv, S, d))

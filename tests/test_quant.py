@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sageattention_tpu import quant
+from sageattention_jax import quant
 
 LOG2E = 1.4426950408889634
 
@@ -123,113 +123,6 @@ class TestQuantizeQK:
         )
 
 
-class TestQuantPallas:
-    """Fused Pallas prologue kernels must match the pure-JAX quant spec
-    (quant.py is the numerical reference for ops/quant_pallas.py)."""
-
-    def test_q_per_token_matches_spec(self):
-        from sageattention_tpu.ops import quant_pallas
-
-        q = jax.random.normal(jax.random.PRNGKey(0), (2, 3, 256, 64))
-        ref_i8, ref_s = quant.quant_int8(
-            q, granularity="per_token", scale_fold=0.125 * 1.4426950408889634
-        )
-        got_i8, got_s = quant_pallas.quant_q_per_token(
-            q, scale_fold=0.125 * 1.4426950408889634, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got_i8), np.asarray(ref_i8))
-        np.testing.assert_allclose(
-            np.asarray(got_s), np.asarray(ref_s), rtol=1e-6
-        )
-
-    def test_q_per_token_unaligned(self):
-        from sageattention_tpu.ops import quant_pallas
-
-        q = jax.random.normal(jax.random.PRNGKey(1), (1, 2, 300, 64))
-        ref_i8, ref_s = quant.quant_int8(q, granularity="per_token")
-        got_i8, got_s = quant_pallas.quant_q_per_token(
-            q, block_s=256, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got_i8), np.asarray(ref_i8))
-        np.testing.assert_allclose(
-            np.asarray(got_s), np.asarray(ref_s), rtol=1e-6
-        )
-
-    def test_k_chunked_with_smoothing(self):
-        from sageattention_tpu.ops import quant_pallas
-
-        k = jax.random.normal(jax.random.PRNGKey(2), (2, 2, 384, 64)) + 1.5
-        k_sm, km = quant.sub_mean(k)
-        ref_i8, ref_s = quant.quant_int8_block_scales(k_sm, group=128)
-        got_i8, got_s = quant_pallas.quant_k_chunked(
-            k, km, group=128, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got_i8), np.asarray(ref_i8))
-        np.testing.assert_allclose(
-            np.asarray(got_s), np.asarray(ref_s), rtol=1e-6
-        )
-
-    def test_k_fused_mean_matches_two_pass(self):
-        """One-read fused mean+quant == jnp.mean + chunked spec (the
-        mean accumulation order may differ at ULP level -> allclose on
-        scales/km, exact-or-off-by-one-ulp rounding tolerated via the
-        int8 comparison on a margin-free distribution)."""
-        from sageattention_tpu.ops import quant_pallas
-
-        k = jax.random.normal(
-            jax.random.PRNGKey(7), (2, 3, 256, 64), jnp.float32
-        )
-        km_ref = jnp.mean(k.astype(jnp.float32), axis=-2)
-        ref_i8, ref_s = quant.quant_int8_block_scales(
-            k.astype(jnp.float32) - km_ref[..., None, :], group=128
-        )
-        got_i8, got_s, got_km = quant_pallas.quant_k_fused_mean(
-            k, group=128, smooth=True, interpret=True
-        )
-        np.testing.assert_allclose(
-            np.asarray(got_km), np.asarray(km_ref), rtol=1e-5, atol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(got_s), np.asarray(ref_s), rtol=1e-5
-        )
-        # ULP-level mean differences can flip a rounding on exact .5
-        # boundaries; allow <=1 lsb on <0.1% of elements
-        diff = np.abs(
-            np.asarray(got_i8, np.int32) - np.asarray(ref_i8, np.int32)
-        )
-        assert diff.max() <= 1
-        assert (diff > 0).mean() < 1e-3
-
-    def test_k_fused_mean_no_smooth_exact(self):
-        from sageattention_tpu.ops import quant_pallas
-
-        k = jax.random.normal(jax.random.PRNGKey(8), (1, 2, 256, 128))
-        ref_i8, ref_s = quant.quant_int8_block_scales(k, group=128)
-        got_i8, got_s, got_km = quant_pallas.quant_k_fused_mean(
-            k, group=128, smooth=False, interpret=True
-        )
-        assert got_km is None
-        np.testing.assert_array_equal(
-            np.asarray(got_i8), np.asarray(ref_i8)
-        )
-        np.testing.assert_allclose(
-            np.asarray(got_s), np.asarray(ref_s), rtol=1e-6
-        )
-
-    def test_k_chunked_unaligned_no_smooth(self):
-        from sageattention_tpu.ops import quant_pallas
-
-        k = jax.random.normal(jax.random.PRNGKey(3), (1, 2, 200, 64))
-        ref_i8, ref_s = quant.quant_int8_block_scales(k, group=128)
-        got_i8, got_s = quant_pallas.quant_k_chunked(
-            k, group=128, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(got_i8), np.asarray(ref_i8))
-        np.testing.assert_allclose(
-            np.asarray(got_s), np.asarray(ref_s), rtol=1e-6
-        )
-
-
 class TestFp8Experiments:
     """FP8 quantization experiments (reference: quant.py:324-437)."""
 
@@ -267,64 +160,3 @@ class TestFp8Experiments:
         v = jax.random.normal(jax.random.PRNGKey(3), (1, 1, 128, 8))
         vq, scale, mean, alpha = quant.per_channel_fp8_affine_autoalpha(v)
         assert vq.shape == v.shape and scale.shape == (1, 1, 8)
-
-
-class TestQuantPallasV:
-    def test_v_per_channel_matches_spec(self):
-        from sageattention_tpu.ops import quant_pallas
-
-        v = jax.random.normal(jax.random.PRNGKey(5), (2, 2, 256, 64)) + 0.7
-        for smooth in (False, True):
-            ref = quant.per_channel_quant(v, dtype=jnp.int8, smooth=smooth)
-            got = quant_pallas.quant_v_per_channel(
-                v, dtype=jnp.int8, smooth=smooth, interpret=True
-            )
-            np.testing.assert_array_equal(np.asarray(got[0]),
-                                          np.asarray(ref[0]))
-            np.testing.assert_allclose(np.asarray(got[1]),
-                                       np.asarray(ref[1]), rtol=1e-6)
-            if smooth:
-                np.testing.assert_allclose(np.asarray(got[2]),
-                                           np.asarray(ref[2]), rtol=1e-5,
-                                           atol=1e-6)
-
-    def test_v_blocked_two_pass_matches_spec(self):
-        """The blocked two-pass kernels (slabs over the VMEM gate); amax
-        is exact (max/min commute with blocking), the mean differs only in
-        summation order, so int8 outputs match the spec up to possible
-        half-ULP rounding flips (none expected on random data).  Calls
-        _quant_v_blocked directly so the test keeps exercising the
-        blocked path regardless of where the size gate sits."""
-        from sageattention_tpu.ops import quant_pallas
-
-        # ragged vs the 2048-row block (forces the tail mask)
-        v = (jax.random.normal(jax.random.PRNGKey(9), (1, 1, 4500, 128))
-             + 0.3).astype(jnp.bfloat16)
-        for smooth in (False, True):
-            ref = quant.per_channel_quant(v, dtype=jnp.int8, smooth=smooth)
-            got = quant_pallas._quant_v_blocked(
-                v, dtype=jnp.int8, smooth=smooth, interpret=True
-            )
-            a = np.asarray(got[0]).astype(np.int32)
-            r = np.asarray(ref[0]).astype(np.int32)
-            assert np.abs(a - r).max() <= 1
-            assert (a != r).mean() < 1e-4
-            np.testing.assert_allclose(np.asarray(got[1]),
-                                       np.asarray(ref[1]), rtol=1e-6)
-            if smooth:
-                np.testing.assert_allclose(np.asarray(got[2]),
-                                           np.asarray(ref[2]), rtol=1e-4,
-                                           atol=1e-5)
-
-    def test_v_fp8(self):
-        from sageattention_tpu.ops import quant_pallas
-
-        v = jax.random.normal(jax.random.PRNGKey(6), (1, 2, 128, 32))
-        ref = quant.per_channel_quant(v, dtype=jnp.float8_e4m3fn)
-        got = quant_pallas.quant_v_per_channel(
-            v, dtype=jnp.float8_e4m3fn, interpret=True
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got[0]).view(np.uint8),
-            np.asarray(ref[0]).view(np.uint8),
-        )

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sageattention_tpu import quant
-from sageattention_tpu.ops import reference
+from sageattention_jax import quant
+from sageattention_jax.ops import reference
 
 LOG2E = 1.4426950408889634
 
